@@ -1,7 +1,7 @@
-"""cuburn_tpu — a TPU-native fractal-flame renderer.
+"""cuburn_tpu — a fractal-flame renderer on JAX.
 
 A from-scratch rebuild of the capabilities of stevenrobertson/cuburn
-(flam3-compatible GPU fractal-flame renderer) on JAX/XLA/Pallas.
+(flam3-compatible GPU fractal-flame renderer) on JAX/XLA.
 
 Where cuburn generates per-genome CUDA at runtime (cuburn/code/iter.py,
 per SURVEY.md §2b), this framework specializes a traced JAX program per
@@ -9,9 +9,9 @@ genome *structure key* and keeps every animated parameter as a runtime
 array, so animation never retraces.  Where cuburn scatters plotted points
 into its histogram with atomics plus a custom radix sort
 (cuburn/code/sort.py), this framework accumulates with sort + segment
-reduction expressed in vectorized XLA / Pallas TPU kernels, and scales
-across chips by sharding trajectories with `shard_map` and reducing
-histograms over ICI.
+reduction expressed in plain XLA programs, and scales across devices
+by sharding trajectories with `shard_map` and reducing histograms with
+one collective.
 
 Layering mirrors SURVEY.md §2:
   genome/   — flam3-compatible schema, splines, XML conversion, palettes,

@@ -1,6 +1,6 @@
 """Genome layer: flam3-compatible schema, splines, conversion, palettes.
 
-TPU-native equivalent of the reference's cuburn/genome/ package
+JAX-side equivalent of the reference's cuburn/genome/ package
 (SURVEY.md §2 layer 3).  Everything here is host-side plain Python /
 numpy; device code only ever sees evaluated parameter pytrees.
 """

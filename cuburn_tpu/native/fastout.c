@@ -1,6 +1,6 @@
 /* fastout — native output-path hot loops for cuburn_tpu.
  *
- * The TPU renders frames; the host must encode them (PNG stills, YCbCr
+ * The device renders frames; the host must encode them (PNG stills, YCbCr
  * conversion for the video pipe) at frame rate.  The reference kept
  * its output path in Python/PIL (cuburn/output.py, SURVEY.md layer 5);
  * at 1080p60 the per-frame Python conversion loops become the frame
@@ -12,7 +12,7 @@
  *   rgb_to_ycbcr444(rgba_bytes, width, height) -> bytes
  *       RGBA8 -> planar 4:4:4 YCbCr (BT.601 full range), for y4m
  *
- * Python falls back to PIL/numpy when this extension is not built
+ * Python falls back to zlib/numpy when this extension is not built
  * (cuburn_tpu/output.py).
  */
 

@@ -1,4 +1,4 @@
-"""Device ops: the TPU-native equivalent of cuburn's generated CUDA layer.
+"""Device ops: the JAX equivalent of cuburn's generated CUDA layer.
 
 Reference mapping (SURVEY.md §2b native-component checklist):
   rng.py        <- cuburn/code/mwc.py        (per-trajectory RNG streams)

@@ -1,4 +1,4 @@
-"""Adaptive density-estimation filtering, TPU-style.
+"""Adaptive density-estimation filtering as dense convolutions.
 
 Equivalent of the reference's DE kernel (cuburn/code/filtering.py
 density_est, SURVEY.md §2b item 6): flam3's adaptive blur where each
@@ -8,7 +8,7 @@ radius *shrinks* with the cell's own density:
     r(d) = clamp(max_radius / d^curve, min_radius, max_radius)
 
 A direct port would be a data-dependent scatter (cuburn's scatter-style
-kernel); on TPU we instead use the **banded decomposition**, which is
+kernel); here we instead use the **banded decomposition**, which is
 exactly equivalent in structure and maps onto dense convs:
 
     quantize r into K geometric levels r_k
@@ -16,7 +16,7 @@ exactly equivalent in structure and maps onto dense convs:
 
 Each source pixel contributes through its own radius band, preserving
 flam3's scatter semantics (per-SOURCE radius, not per-dest), while all
-the work is K separable convolutions — dense, fusable, VPU/MXU-friendly
+the work is K separable convolutions — dense, fusable, vector-friendly
 (SURVEY.md §7 "hard parts" item 2 names this fallback; here it is the
 primary implementation).
 

@@ -2,8 +2,8 @@
 
 Equivalent of the reference's cuburn/code/filtering.py kernels
 (SURVEY.md §2b): these are pure elementwise/reduction ops, so they are
-expressed directly in XLA (jit-fused) rather than Pallas — XLA already
-compiles them to fused VPU loops (SURVEY.md §2b checklist items 5/7).
+expressed directly in XLA (jit-fused), which compiles them to fused
+elementwise kernels (SURVEY.md §2b checklist items 5/7).
 The adaptive density-estimation filter lives in ops/de.py.
 
 Functional forms follow flam3 (rect.c), with colors kept in [0,1]

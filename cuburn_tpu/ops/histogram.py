@@ -1,38 +1,30 @@
 """Histogram accumulation: plotted points -> (n_bins+1, 4) f32 buckets.
 
-TPU-native replacement for the reference's deferred-writeback pipeline
+The reference accumulates through a deferred-writeback pipeline
 (cuburn/code/sort.py radix sort + segmented write kernel, SURVEY.md §1
-"famous optimization" / §2b items 3): TPUs have no fast random HBM
-atomics, so accumulation backends are pluggable and differential-tested
-against each other:
+"famous optimization").  Here accumulation backends are plain XLA
+programs, pluggable and differential-tested against each other:
 
-  * `scatter`  — XLA scatter-add (`hist.at[addr].add(rgba)`).  Exact,
-    always available; the correctness baseline (SURVEY.md §7 stage 1).
+  * `scatter`  — XLA scatter-add (`hist.at[addr].add(rgba)`), which the
+    GPU backend lowers to atomic adds, so RGB sums change in their last
+    bits from run to run there.  Always available; the correctness
+    baseline (SURVEY.md §7 stage 1).
   * `scatter_sorted` — lax.sort by address, then scatter-add with the
-    `indices_are_sorted` hint.  Exact (in-bin add order is the sorted
-    order).  A real-silicon candidate: the sort is the same one
-    pallas_win pays, and a monotone scatter may lower better than a
-    random one.
-  * `sortcum`  — sort-free-of-scatter path: `lax.sort` points by
-    address, per-channel prefix sums, then per-bin range-difference via
-    the monotone-fill trick.  All vectorized XLA ops; no data-dependent
-    scatter at all.  Error bounded by cumsum roundoff (see note below).
-  * pallas backends — the Pallas kernels of ops/pallas_hist.py
-    (`pallas`, `pallas_merged`, and the default-on-TPU performance
-    path `pallas_win`) are dispatched inside ops/iterate.py's flush
-    loop (they consume packed records, not (addr, rgba) rows), so
-    they are NOT in this module's get_backend registry.
+    `indices_are_sorted` hint: the reference's sort-then-write order,
+    with XLA's scatter as the write kernel.
+  * `sortcum`  — lax.sort by address, a segmented prefix sum that
+    restarts at every new address, and ONE write per distinct bin
+    (unique addresses: no two updates contend for a bin).
+
+"auto" resolves to AUTO_BACKEND.
 
 The histogram layout is (n_bins + 1, 4) float32: RGB + density, with a
 junk bin at index n_bins receiving masked/out-of-bounds points
 (branch-free masking; see ops/camera.py).  Density can exceed 2^24 so
 the histogram is always f32, never bf16 (SURVEY.md §3.5 numerics note).
-
-Precision note for `sortcum`: per-bin sums are differences of prefix
-sums over the flush; absolute error is O(ulp(flush_mass)) per flush.
-Flushes are bounded (~2^21 samples of magnitude <=1) so error per bin
-per flush is <~0.25 ulp-of-2M ~ 0.25; across many flushes errors are
-unbiased.  The golden tests bound the end-to-end visual impact.
+Density adds are integer counts (or temporal weights that are exact in
+f32), so every backend's density is exact in any add order; RGB sums
+differ between backends only by f32 reassociation.
 """
 
 from __future__ import annotations
@@ -63,64 +55,51 @@ def accumulate_scatter(hist, addr, rgba):
     return hist.at[addr.reshape(-1)].add(rgba.reshape(-1, 4))
 
 
-def accumulate_scatter_sorted(hist, addr, rgba):
-    """Sort rows by address, then scatter-add with the
-    `indices_are_sorted` hint.
-
-    Same O(n log² n) lax.sort the pallas_win path already pays, but
-    the flush is a plain XLA scatter that the compiler KNOWS visits
-    bins monotonically — on chips whose scatter lowering exploits the
-    hint (sequential-window updates instead of random HBM access) this
-    can beat both random scatter and the windowed Pallas kernel.
-    Untried on real v5e; raced per chip by cuburn_tpu/retune.py.
-    Exact: pure reordering of f32 adds within each bin."""
-    flat_addr = addr.reshape(-1)
+def _sort_by_addr(addr, rgba):
     flat_rgba = rgba.reshape(-1, 4)
     sa, r, g, b, d = jax.lax.sort(
-        (flat_addr, flat_rgba[:, 0], flat_rgba[:, 1], flat_rgba[:, 2],
-         flat_rgba[:, 3]), num_keys=1)
-    rgba_s = jnp.stack([r, g, b, d], axis=1)
+        (addr.reshape(-1), flat_rgba[:, 0], flat_rgba[:, 1],
+         flat_rgba[:, 2], flat_rgba[:, 3]), num_keys=1)
+    return sa, jnp.stack([r, g, b, d], axis=1)
+
+
+def accumulate_scatter_sorted(hist, addr, rgba):
+    """Sort rows by address, then scatter-add with the
+    `indices_are_sorted` hint (equal addresses are adjacent, so a
+    lowering may merge their updates before touching memory)."""
+    sa, rgba_s = _sort_by_addr(addr, rgba)
     return hist.at[sa].add(rgba_s, indices_are_sorted=True)
 
 
 # ---------------------------------------------------------------------------
-# sortcum backend: sort + prefix-sum + monotone fill, no scatter anywhere
+# sortcum backend: sort + segmented prefix sum + one write per bin
 # ---------------------------------------------------------------------------
 
 def accumulate_sortcum(hist, addr, rgba):
-    """Sort-based scatter-free accumulation.
+    """Sort-based accumulation with one update per distinct bin.
 
-    1. sort (addr, rgba) by addr                       [lax.sort]
-    2. per-channel inclusive prefix sums               [cumsum]
-    3. for each sorted run end i (addr[i] != addr[i+1]), the prefix sum
-       at i is the total mass of all bins <= addr[i]; place those rows
-       at their bin index with a *unique-index* set-scatter, fill the
-       gaps with a running maximum (valid because mass is nonnegative,
-       so prefix sums are monotone), and difference adjacent bins.
+    1. sort (addr, rgba) by addr                         [lax.sort]
+    2. segmented inclusive prefix sum that restarts at every new
+       address, so the last row of each run holds that bin's total
+       (a tree-ordered f32 sum of the run alone: its error scales with
+       the bin's own mass, not with the whole flush's)
+    3. add each run total to its bin: run ends have unique addresses,
+       every other row is diverted to a scratch slot past the junk bin
     """
     n_bins_p1 = hist.shape[0]
-    flat_addr = addr.reshape(-1)
-    flat_rgba = rgba.reshape(-1, 4)
-    B = flat_addr.shape[0]
+    sa, vals = _sort_by_addr(addr, rgba)
+    starts = jnp.concatenate([jnp.ones((1,), bool), sa[1:] != sa[:-1]])
 
-    sa, r, g, b, d = jax.lax.sort(
-        (flat_addr, flat_rgba[:, 0], flat_rgba[:, 1], flat_rgba[:, 2],
-         flat_rgba[:, 3]), num_keys=1)
-    csum = jnp.cumsum(jnp.stack([r, g, b, d], axis=1), axis=0)  # (B,4)
+    def combine(left, right):
+        f_l, v_l = left
+        f_r, v_r = right
+        return f_l | f_r, jnp.where(f_r[..., None], v_r, v_l + v_r)
 
-    # run ends: last position of each distinct address
-    is_end = jnp.concatenate(
-        [sa[:-1] != sa[1:], jnp.ones((1,), dtype=bool)])
-    # scatter prefix-sum rows at run-end addresses (unique indices);
-    # non-run-end rows are diverted to a second junk slot.
-    scatter_idx = jnp.where(is_end, sa, n_bins_p1)
-    dense = jnp.zeros((n_bins_p1 + 1, 4), jnp.float32).at[
-        scatter_idx].max(csum, mode="drop", unique_indices=False)
-    dense = dense[:n_bins_p1]
-    # monotone gap fill + difference
-    filled = jax.lax.cummax(dense, axis=0)
-    sums = jnp.diff(filled, axis=0, prepend=jnp.zeros((1, 4), jnp.float32))
-    return hist + sums
+    _, run_sums = jax.lax.associative_scan(combine, (starts, vals))
+    is_end = jnp.concatenate([sa[:-1] != sa[1:], jnp.ones((1,), bool)])
+    idx = jnp.where(is_end, sa, n_bins_p1)
+    padded = jnp.concatenate([hist, jnp.zeros((1, 4), hist.dtype)])
+    return padded.at[idx].add(run_sums)[:n_bins_p1]
 
 
 # ---------------------------------------------------------------------------
@@ -140,3 +119,9 @@ def get_backend(name: str):
     except KeyError:
         raise ValueError(
             f"unknown histogram backend {name!r}; have {sorted(BACKENDS)}")
+
+
+# scatter won the race on an NVIDIA H100 (700 W limit) at 512², 720p
+# and 1080p-ss2 histograms (4 MB to 132 MB) by ~4.4x over both sorted
+# backends (bench/histrace.py), so "auto" needs no rule on geometry.
+AUTO_BACKEND = "scatter"

@@ -1,6 +1,6 @@
 """The chaos-game iteration kernel: the hot loop of the renderer.
 
-TPU-native equivalent of the reference's generated iter kernel
+JAX equivalent of the reference's generated iter kernel
 (cuburn/code/iter.py, SURVEY.md §3.5): where cuburn runs one point per
 CUDA thread with divergent branches, this advances a batch of B
 trajectories in SIMD lockstep under `lax.scan`:
@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from cuburn_tpu.genome.specs import GenomeParams, StructureKey
+from cuburn_tpu.ops import histogram as hist_mod
 from cuburn_tpu.ops import rng as rng_mod
 from cuburn_tpu.ops.camera import CameraSpec, project
 from cuburn_tpu.ops.xform import (apply_final_xform, apply_xforms,
@@ -119,13 +120,13 @@ def quantize_color(color_bits: int, pcolor):
     beyond the reference's own storage)."""
     levels = np.float32((1 << color_bits) - 1)
     q = jnp.clip(pcolor, 0.0, 1.0) * levels + 0.5
-    # i32 hop on the quantized value: Mosaic has no f32->u32 cast
+    # via int32: the quantized value fits 31 bits, so the hop is exact
     return q.astype(jnp.int32).astype(jnp.uint32)
 
 
 def pack_records(color_bits: int, addr, pcolor):
     """(addr, color) -> one uint32 per plotted sample: cuburn's packed
-    writeback-log entry, TPU edition."""
+    writeback-log entry."""
     return (addr.astype(jnp.uint32) << np.uint32(color_bits)) \
         | quantize_color(color_bits, pcolor)
 
@@ -193,7 +194,7 @@ def respawn_xy(bits: jnp.ndarray):
     h2 = (bits ^ jnp.uint32(0x5BD1E995)) * jnp.uint32(0xC2B2AE35)
     h2 = h2 ^ (h2 >> jnp.uint32(13))
     inv24 = np.float32(1.0 / (1 << 24))
-    # i32 hop: Mosaic has no u32->f32 cast (values fit 24 bits)
+    # via int32: the values fit 24 bits, so the hop is exact
     rx = (h1 >> jnp.uint32(8)).astype(jnp.int32)\
         .astype(jnp.float32) * inv24 * 2.0 - 1.0
     ry = (h2 >> jnp.uint32(8)).astype(jnp.int32)\
@@ -297,8 +298,7 @@ def iterate_chunk(
 
 @partial(jax.jit,
          static_argnames=("key", "cam", "iters_per_flush", "fuse",
-                          "backend", "packed", "op_bits",
-                          "sort_segments", "sort_impl"))
+                          "backend", "packed", "op_bits"))
 def iterate_accumulate(
     key: StructureKey,
     cam: CameraSpec,
@@ -315,8 +315,6 @@ def iterate_accumulate(
     weight=None,
     tile_row0=None,
     op_bits: int = 0,
-    sort_segments: int = 1,
-    sort_impl: str = None,
 ):
     """Advance n_chunks * iters_per_flush steps, flushing the histogram
     once per chunk — the rendering path.
@@ -356,14 +354,8 @@ def iterate_accumulate(
         tot_bits = op_bits + cbits
     else:
         cbits = color_bits_for(cam.layout_bins) if packed else 0
-        if backend in ("pallas_win", "pallas_rgb16") and cbits:
-            # 2^8 = flam3's native palette resolution; quarters the
-            # windowed kernel's palette one-hot cost vs 10 bits
-            cbits = min(cbits, 8)
         tot_bits = cbits
-    if backend.startswith("pallas") and not cbits:
-        raise ValueError("pallas backend requires packed records "
-                         "(<= 2^24 bins; see opacity_bits_for)")
+    accumulate = hist_mod.get_backend(backend)
     w = jnp.float32(1.0) if weight is None else \
         jnp.asarray(weight, jnp.float32)
 
@@ -394,41 +386,15 @@ def iterate_accumulate(
 
             state, packed_recs = jax.lax.scan(
                 body, state, None, length=iters_per_flush)
-            if backend in ("pallas", "pallas_merged", "pallas_win",
-                           "pallas_rgb16"):
-                from cuburn_tpu.ops import pallas_hist as ph
-                acc = {"pallas": ph.accumulate_packed_pallas,
-                       "pallas_merged": ph.accumulate_merged_pallas,
-                       "pallas_win": ph.accumulate_windowed_pallas,
-                       "pallas_rgb16": ph.accumulate_windowed_pallas_rgb16,
-                       }[backend]
-                kw = ({"sort_segments": sort_segments,
-                       "sort_impl": sort_impl}
-                      if backend in ("pallas_win", "pallas_rgb16")
-                      else {})
-                hist = acc(
-                    hist, packed_recs, palette_hi, cam.n_bins,
-                    tot_bits,
-                    interpret=jax.default_backend() != "tpu",
-                    weight=w, **kw)
-                # f32 counter: an int32 carry wraps past 2^31 plotted
-                # samples (one 4K-class call exceeds it); per-chunk
-                # sums stay int32-exact, the running total is stats
-                n = n + jnp.sum(
-                    (packed_recs >> np.uint32(tot_bits))
-                    .astype(jnp.int32)
-                    != cam.junk_bin).astype(jnp.float32)
-            else:
-                accumulate = _get_accumulate(backend)
-                addrs, rgbas = unpack_records(tot_bits,
-                                              palette_hi, packed_recs)
-                hist = accumulate(hist, addrs, rgbas * w)
-                n = n + jnp.sum(
-                    addrs != cam.junk_bin).astype(jnp.float32)
+            addrs, rgbas = unpack_records(tot_bits, palette_hi,
+                                          packed_recs)
+            hist = accumulate(hist, addrs, rgbas * w)
+            # f32 counter: an int32 carry wraps past 2^31 plotted
+            # samples (one 4K-class call exceeds it); per-chunk sums
+            # stay int32-exact, the running total is stats
+            n = n + jnp.sum(addrs != cam.junk_bin).astype(jnp.float32)
             return state, hist, n
     else:
-        accumulate = _get_accumulate(backend)
-
         def chunk_body(_, carry):
             state, hist, n = carry
             state, addrs, rgbas = iterate_chunk(
@@ -445,8 +411,7 @@ def iterate_accumulate(
 
 @partial(jax.jit,
          static_argnames=("key", "cam", "iters_per_flush", "fuse",
-                          "backend", "packed", "op_bits",
-                          "sort_segments", "sort_impl"))
+                          "backend", "packed", "op_bits"))
 def iterate_accumulate_temporal(
     key: StructureKey,
     cam: CameraSpec,
@@ -462,8 +427,6 @@ def iterate_accumulate_temporal(
     weights_T=None,           # (T,) temporal-filter weights
     tile_row0=None,
     op_bits: int = 0,
-    sort_segments: int = 1,
-    sort_impl: str = None,
 ):
     """Accumulate all temporal samples of a motion-blurred frame in ONE
     device program (SURVEY.md §2b temporal-sample parallelism row: fold
@@ -484,53 +447,10 @@ def iterate_accumulate_temporal(
         state, hist, dn = iterate_accumulate(
             key, cam, backend, params_t, cdf_rows, state, hist, ppu,
             n_chunks_per_sample, iters_per_flush, fuse, packed=packed,
-            weight=w_t, tile_row0=tile_row0, op_bits=op_bits,
-            sort_segments=sort_segments, sort_impl=sort_impl)
+            weight=w_t, tile_row0=tile_row0, op_bits=op_bits)
         return (state, hist, n + dn), None
 
     (state, hist, n), _ = jax.lax.scan(
         sample_body, (state, hist, jnp.float32(0.0)),
         (params_T, ppu_T, weights_T))
     return state, hist, n
-
-
-def _get_accumulate(backend: str):
-    from cuburn_tpu.ops import histogram as hist_mod
-    return hist_mod.get_backend(backend)
-
-
-def hist_alloc_for(backend: str, n_bins: int):
-    """Allocate the histogram in the layout the backend accumulates
-    into: channel planes for pallas_win, lane-packed for the other
-    pallas backends, logical (bins+1, 4) otherwise."""
-    from cuburn_tpu.ops import histogram as hist_mod
-    hist = hist_mod.alloc(n_bins)
-    return hist_to_layout(backend, hist)
-
-
-def hist_to_layout(backend: str, hist):
-    """Convert a logical (bins+1, 4) histogram to backend layout."""
-    if backend == "pallas_win":
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.to_planes_layout(hist)
-    if backend == "pallas_rgb16":
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.to_split_layout(hist)
-    if backend.startswith("pallas"):
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.to_packed_layout(hist)
-    return hist
-
-
-def hist_to_logical(backend: str, hist, n_bins: int):
-    """Convert a backend-layout histogram to logical (bins+1, 4)."""
-    if backend == "pallas_win":
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.from_planes_layout(hist, n_bins)
-    if backend == "pallas_rgb16":
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.from_split_layout(hist[0], hist[1], n_bins)
-    if backend.startswith("pallas"):
-        from cuburn_tpu.ops import pallas_hist as ph
-        return ph.from_packed_layout(hist, n_bins)
-    return hist

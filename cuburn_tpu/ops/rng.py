@@ -3,10 +3,9 @@
 Behavioral equivalent of the reference's MWC RNG (cuburn/code/mwc.py,
 SURVEY.md §2b): every trajectory owns an independent, seedable,
 cheap-per-draw random stream.  cuburn keeps {mult, state, carry} per
-CUDA thread and multiply-with-carry steps it; 64-bit multiplies are
-awkward on the TPU VPU, so this uses a per-lane **xorwow-style
-xorshift128** (four uint32 words of state per lane, ~6 VPU ops per
-draw), seeded from JAX's counter-based threefry so that seeding quality
+CUDA thread and multiply-with-carry steps it; this uses a per-lane
+**xorwow-style xorshift128** (four uint32 words of state per lane, ~6
+32-bit vector ops per draw, no 64-bit multiplies), seeded from JAX's counter-based threefry so that seeding quality
 is cryptographic even though per-step generation is cheap.
 
 Like cuburn's MWCTest self-test kernel, tests/test_rng.py cross-checks
@@ -60,8 +59,7 @@ def next_bits(state: jax.Array):
 def uniform(state: jax.Array):
     """(new_state, u) with u ~ U[0,1) float32, one per lane."""
     state, bits = next_bits(state)
-    # via int32: Mosaic (Pallas) has no u32->f32 cast; top-24-bit
-    # values are exact either way
+    # via int32: top-24-bit values are exact either way
     u = (bits >> jnp.uint32(8)).astype(jnp.int32)\
         .astype(jnp.float32) * _INV24
     return state, u

@@ -1,6 +1,6 @@
 """Branch-free xform application over the whole point batch.
 
-TPU-native replacement for the reference's generated `apply_xf_<i>`
+JAX replacement for the reference's generated `apply_xf_<i>`
 device functions (cuburn/code/iter.py, SURVEY.md §2b): instead of
 divergent per-thread branches on the chosen xform — which would lower to
 `lax.switch`-style masked evaluation of *every xform's whole body* — we
@@ -88,8 +88,8 @@ def build_xform_table(key: StructureKey, params):
     Column layout: [affine 0:6][color][speed][opacity]
                    [post 9:15 when has_post][var_weights][var_params].
     The concat is loop-invariant — XLA hoists it out of the iteration
-    loop — and the fetch runs on the MXU instead of N scalar gathers
-    (the TPU-native answer to cuburn's per-thread parameter reads)."""
+    loop — and the fetch is one matmul instead of N scalar gathers
+    (the vectorized answer to cuburn's per-thread parameter reads)."""
     cols = [params.affine,
             params.color[:, None], params.color_speed[:, None],
             params.opacity[:, None]]
@@ -108,10 +108,10 @@ def select_and_fetch(key: StructureKey, cdf_rows, table, last_xf, u):
     row (S_{j-1} - S_j), and fetches the point's parameter row with one
     (B, N) @ (N, K) matmul.  Returns (xf_idx, row (B, K))."""
     n = key.n_xforms
-    # HIGHEST precision on both matmuls: the default MXU precision is
-    # bf16-class on TPU (CLAUDE.md's on-device measurement), which
-    # would silently quantize every fetched genome parameter and CDF
-    # threshold to ~8 mantissa bits each iteration
+    # HIGHEST precision on both matmuls: at the default precision a
+    # float32 matmul may run in TF32 on the GPU's tensor cores (10
+    # mantissa bits), which would silently quantize every fetched
+    # genome parameter and CDF threshold each iteration
     hp = jax.lax.Precision.HIGHEST
     if key.has_xaos:
         rows_oh = jax.nn.one_hot(last_xf, n, dtype=u.dtype)   # (B, N)
@@ -123,7 +123,7 @@ def select_and_fetch(key: StructureKey, cdf_rows, table, last_xf, u):
     shifted = jnp.concatenate(
         [jnp.ones_like(step[:, :1]), step[:, :-1]], axis=1)
     onehot = shifted - step          # exactly one 1.0 per row
-    row = jnp.matmul(onehot, table, precision=hp)  # (B, K) — MXU
+    row = jnp.matmul(onehot, table, precision=hp)  # (B, K)
     return idx, row
 
 

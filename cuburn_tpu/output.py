@@ -1,17 +1,19 @@
 """Output sinks: PNG/JPEG stills and raw/y4m video pipes.
 
 Equivalent of the reference's cuburn/output.py (SURVEY.md §2 layer 5):
-PIL-based still writer plus a frame pipe suitable for feeding ffmpeg /
-x264 downstream.  The y4m writer is dependency-free so animations work
-even without an encoder installed.
+PNG still writer plus a frame pipe suitable for feeding ffmpeg / x264
+downstream.  PNG and y4m need nothing beyond the standard library and
+numpy; only JPEG needs PIL.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import struct
 import subprocess
 import sys
+import zlib
 from typing import IO, Optional
 
 import numpy as np
@@ -27,11 +29,16 @@ def write_image(path: str, img: np.ndarray):
     extension (RGB is upgraded to opaque RGBA, like the video sinks).
 
     PNG goes through the native zlib encoder when built (the per-frame
-    host hot path); JPEG and the fallback use PIL."""
+    host hot path), else through encode_png; JPEG needs PIL."""
     arr = np.ascontiguousarray(img, dtype=np.uint8)
     ext = os.path.splitext(path)[1].lower()
     if ext in (".jpg", ".jpeg"):
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError:
+            raise RuntimeError(
+                f"writing {path}: JPEG output needs PIL (Pillow), "
+                "which is not installed; write .png instead") from None
         Image.fromarray(arr[..., :3], "RGB").save(path, quality=95)
         return
     if arr.ndim == 3 and arr.shape[2] == 3:
@@ -39,12 +46,87 @@ def write_image(path: str, img: np.ndarray):
             [arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)],
             axis=2)
     h, w = arr.shape[:2]
-    if _fastout is not None:
-        with open(path, "wb") as f:
+    with open(path, "wb") as f:
+        if _fastout is not None:
             f.write(_fastout.encode_png(arr.tobytes(), w, h))
-    else:
-        from PIL import Image
-        Image.fromarray(arr, "RGBA").save(path)
+        else:
+            f.write(encode_png(arr))
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(rgba: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 4) u8 -> PNG bytes (8-bit RGBA, unfiltered scanlines,
+    zlib deflate): the standard-library fallback of the native
+    encoder."""
+    rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
+    h, w = rgba.shape[:2]
+    if rgba.shape != (h, w, 4) or h <= 0 or w <= 0:
+        raise ValueError(f"need a non-empty (H, W, 4) frame, got "
+                         f"{rgba.shape}")
+    raw = np.zeros((h, 1 + 4 * w), np.uint8)   # filter byte 0 per row
+    raw[:, 1:] = rgba.reshape(h, 4 * w)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) u8 for 8-bit RGB/RGBA files with any
+    scanline filter (what encode_png and the native encoder write)."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype, _c, _f, interlace = hdr
+    if depth != 8 or ctype not in (2, 6) or interlace:
+        raise ValueError(f"unsupported PNG: depth {depth}, color type "
+                         f"{ctype}, interlace {interlace}")
+    bpp = 4 if ctype == 6 else 3
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + stride)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:        # Sub: running sum along the row
+            cur = np.cumsum(line.reshape(w, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:        # Up
+            cur = line + prev   # uint8 arithmetic wraps mod 256
+        else:                   # Average, Paeth: byte by byte
+            cur = bytearray(stride)
+            up = prev.tobytes()
+            for x, v in enumerate(line.tobytes()):
+                left = cur[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if ftype == 3:
+                    pred = (left + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    p = left + b - c
+                    pa, pb, pc = abs(p - left), abs(p - b), abs(p - c)
+                    pred = left if pa <= pb and pa <= pc else \
+                        (b if pb <= pc else c)
+                cur[x] = (v + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, bpp)
 
 
 class Y4MSink:

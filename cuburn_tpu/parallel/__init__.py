@@ -1,9 +1,9 @@
 """Multi-chip and multi-host parallel rendering.
 
 Reference mapping (SURVEY.md §2b parallelism table):
-  shard.py — intra-frame: trajectories sharded across chips with
+  shard.py — intra-frame: trajectories sharded across devices with
              shard_map, per-device partial histograms reduced with
-             psum over ICI (the only collective the renderer needs).
+             one psum (the only collective the renderer needs).
   farm.py  — inter-frame: frame-level job distribution across
              processes/hosts (the reference's zmq dist/ farm).
 """

@@ -22,13 +22,12 @@ class RenderProfile:
     fuse: int = 32               # warmup iterations before plotting
     batch: int = 1 << 17         # trajectories advanced in lockstep
     # scan length between histogram flushes (records per flush =
-    # batch * iters_per_chunk).  0 = auto: the Renderer starts from
-    # the per-chip tune record (or the measured 512² default of 32)
-    # and scales UP for HBM-tiled histograms, where a sorted flush
-    # pays ~the whole histogram in row-block traffic regardless of
-    # record count (render.py _resolve_iters_per_chunk).
+    # batch * iters_per_chunk).  0 = auto (render.py
+    # resolve_iters_per_chunk).
     iters_per_chunk: int = 0
-    hist_backend: str = "auto"   # auto | scatter | sortcum | pallas | pallas_merged | pallas_win | pallas_rgb16 (auto picks pallas_win on TPU)
+    # auto | scatter | scatter_sorted | sortcum (ops/histogram.py;
+    # auto = histogram.AUTO_BACKEND)
+    hist_backend: str = "auto"
     de_enabled: bool = True
     transparent: bool = False
     fps: float = 24.0
@@ -36,15 +35,18 @@ class RenderProfile:
     temporal_samples: int = 1    # genome evaluations per frame (motion blur)
     skip: int = 1                # render every skip-th frame
     # split accumulation into device calls of at most this many
-    # iterations (None = one call per frame/sample).  For environments
-    # whose TPU worker kills long-running executions; the same
-    # compiled program serves every call (traced chunk count).
+    # iterations (None = one call per frame/sample), bounding the
+    # length of any single device execution; the same compiled
+    # program serves every call (traced chunk count).
     dispatch_iter_cap: Optional[int] = None
-    # pallas_win flush: sort the per-flush log as this many independent
-    # sub-sorts (power of two; fewer bitonic substages, wider windows —
-    # ops/pallas_hist.py).  0 = auto (measured default per chip class,
-    # bench/segsweep.py); CUBURN_SORT_SEGMENTS env overrides.
-    sort_segments: int = 0
+
+    def __post_init__(self):
+        from cuburn_tpu.ops.histogram import BACKENDS
+        if self.hist_backend != "auto" and \
+                self.hist_backend not in BACKENDS:
+            raise ValueError(
+                f"unknown histogram backend {self.hist_backend!r}; "
+                f"have {['auto'] + sorted(BACKENDS)}")
 
     @property
     def total_iters(self) -> int:

@@ -1,6 +1,6 @@
 """Build shim: compiles the native output-path extension.
 
-The extension is optional — cuburn_tpu falls back to PIL/numpy when it
+The extension is optional — cuburn_tpu falls back to zlib/numpy when it
 isn't present — so build errors degrade to a warning instead of failing
 the install.
 """

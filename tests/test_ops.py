@@ -109,8 +109,8 @@ class TestHistogram:
         """Differential test: sortcum vs scatter (SURVEY.md §5 race
         detection row: exact-equality differential test instead).
 
-        Tolerance reflects sortcum's documented prefix-sum roundoff
-        bound (~ulp of flush mass); the Pallas backend is exact."""
+        Every backend's density is exact; RGB differs only by f32
+        reassociation."""
         rng = np.random.RandomState(0)
         addr = jnp.asarray(
             rng.randint(0, n_bins + 1, n_pts), jnp.int32)  # incl junk
@@ -273,15 +273,14 @@ class TestIterate:
     def test_temporal_weight_scales_mass_exactly(self):
         """iterate_accumulate's `weight` must scale every record's
         contribution exactly (the flam3 temporal-filter weight)."""
-        from cuburn_tpu.ops.iterate import (hist_alloc_for,
-                                            iterate_accumulate)
+        from cuburn_tpu.ops.iterate import iterate_accumulate
         g = sierpinski()
         key = g.structure_key()
         params = jax.tree_util.tree_map(jnp.asarray, g.eval_at(0.0))
         cam = CameraSpec(64, 64, 1)
         cdf = xform_cdf_rows(params)
         state = init_state(jax.random.PRNGKey(3), 512)
-        hist0 = hist_alloc_for("scatter", cam.n_bins)
+        hist0 = hist_mod.alloc(cam.n_bins)
         ppu = params.ppu * (64 / g.size[0])
         args = (key, cam, "scatter", params, cdf, state, hist0, ppu,
                 jnp.int32(2), 16, 8)
@@ -328,109 +327,6 @@ class TestIterate:
         assert c[1, 1] == pytest.approx(c[1, 2])  # p(xf2 | xf1) = 0
 
 
-class TestPallasHistogram:
-    """Differential tests for the Pallas accumulation kernel
-    (interpret mode on CPU — SURVEY.md §5: exact-equality differential
-    test replaces GPU race detection)."""
-
-    def test_matches_scatter(self):
-        from cuburn_tpu.ops import pallas_hist as ph
-        from cuburn_tpu.ops.iterate import (expand_palette,
-                                            pack_records,
-                                            unpack_records)
-        rng = np.random.RandomState(0)
-        n_bins, cbits = 2000, 10
-        cam = CameraSpec(50, 40, 1)
-        M = 5000
-        addr = jnp.asarray(rng.randint(0, n_bins + 1, M), jnp.int32)
-        color = jnp.asarray(rng.rand(M).astype(np.float32))
-        palette = jnp.asarray(rng.rand(256, 3).astype(np.float32))
-        pal_hi = expand_palette(palette, cbits)
-        packed = pack_records(cbits, addr, color)
-        a2, rgba = unpack_records(cbits, pal_hi, packed)
-        ref = hist_mod.accumulate_scatter(hist_mod.alloc(n_bins), a2,
-                                          rgba)
-        hp = ph.to_packed_layout(hist_mod.alloc(n_bins))
-        out = ph.accumulate_packed_pallas(hp, packed, pal_hi, n_bins,
-                                          cbits, interpret=True)
-        got = ph.from_packed_layout(out, n_bins)
-        # junk bin differs by design (BLOCK padding lands there)
-        np.testing.assert_allclose(np.asarray(got[:n_bins]),
-                                   np.asarray(ref[:n_bins]), atol=1e-4)
-
-    def test_layout_roundtrip(self):
-        from cuburn_tpu.ops import pallas_hist as ph
-        rng = np.random.RandomState(1)
-        h = jnp.asarray(rng.rand(1001, 4).astype(np.float32))
-        back = ph.from_packed_layout(ph.to_packed_layout(h), 1000)
-        np.testing.assert_array_equal(np.asarray(back), np.asarray(h))
-
-    def test_render_with_pallas_backend(self):
-        from cuburn_tpu.profile import RenderProfile
-        from cuburn_tpu.render import Renderer
-        g = sierpinski()
-        prof_s = RenderProfile(width=64, height=64, quality=30,
-                               batch=1024, iters_per_chunk=8,
-                               hist_backend="scatter", de_enabled=False)
-        prof_p = dataclasses.replace(prof_s, hist_backend="pallas")
-        img_s, _ = Renderer(g, prof_s).render_frame(0.0, seed=7)
-        img_p, _ = Renderer(g, prof_p).render_frame(0.0, seed=7)
-        # same seed, same trajectory stream -> images should agree to
-        # quantization (identical except junk-bin padding artifacts)
-        np.testing.assert_allclose(
-            img_s.astype(np.int32), img_p.astype(np.int32), atol=1)
-
-    def test_iterate_rgb16_matches_pallas_win(self):
-        """pallas_rgb16 (split bf16-rgb HBM layout) over multiple
-        chunks: density bit-exact vs pallas_win (f32 accumulation in
-        both, integer counts), rgb within the bf16 storage envelope —
-        one rounding per block per flush, so error scales with flush
-        count times a bf16 ulp of the running value (bounded here by
-        density, since palette entries are <= 1)."""
-        from cuburn_tpu.ops.iterate import (hist_alloc_for,
-                                            hist_to_logical,
-                                            iterate_accumulate)
-        g = sierpinski()
-        key = g.structure_key()
-        params = jax.tree_util.tree_map(jnp.asarray, g.eval_at(0.0))
-        cam = CameraSpec(64, 64, 1)
-        cdf = xform_cdf_rows(params)
-        ppu = params.ppu * jnp.float32(64 / g.size[0])
-        out = {}
-        n_chunks = 3
-        for backend in ("pallas_win", "pallas_rgb16"):
-            state = init_state(jax.random.PRNGKey(9), 1024)
-            h0 = hist_alloc_for(backend, cam.n_bins)
-            _, h, n = iterate_accumulate(
-                key, cam, backend, params, cdf, state, h0, ppu,
-                jnp.int32(n_chunks), 16, 8)
-            out[backend] = (np.asarray(
-                hist_to_logical(backend, h, cam.n_bins)), int(n))
-        w, n_w = out["pallas_win"]
-        r, n_r = out["pallas_rgb16"]
-        assert n_w == n_r and n_w > 0
-        np.testing.assert_array_equal(r[:-1, 3], w[:-1, 3])
-        # bf16 has 8 mantissa bits -> relative step 2^-8; error per
-        # bin bounded by n_chunks roundings of a value <= density
-        bound = n_chunks * 2.0 ** -8 * np.maximum(w[:-1, 3:4], 1.0)
-        assert (np.abs(r[:-1, :3] - w[:-1, :3]) <= bound).all()
-
-    def test_render_with_pallas_win_backend(self):
-        """End-to-end render through the windowed one-hot-matmul flush
-        (channel-planes layout) matches scatter to quantization."""
-        from cuburn_tpu.profile import RenderProfile
-        from cuburn_tpu.render import Renderer
-        g = sierpinski()
-        prof_s = RenderProfile(width=64, height=64, quality=30,
-                               batch=1024, iters_per_chunk=8,
-                               hist_backend="scatter", de_enabled=False)
-        prof_w = dataclasses.replace(prof_s, hist_backend="pallas_win")
-        img_s, _ = Renderer(g, prof_s).render_frame(0.0, seed=7)
-        img_w, _ = Renderer(g, prof_w).render_frame(0.0, seed=7)
-        np.testing.assert_allclose(
-            img_s.astype(np.int32), img_w.astype(np.int32), atol=1)
-
-
 class TestOpacityPackedRecords:
     """Opacity-extended packed records (ops/iterate.py
     opacity_bits_for): genomes with per-xform opacity != 1 keep the
@@ -445,8 +341,7 @@ class TestOpacityPackedRecords:
         return g
 
     def test_matches_full_records(self):
-        from cuburn_tpu.ops.iterate import (hist_alloc_for,
-                                            iterate_accumulate,
+        from cuburn_tpu.ops.iterate import (iterate_accumulate,
                                             opacity_bits_for)
         g = self._genome()
         key = g.structure_key()
@@ -459,7 +354,7 @@ class TestOpacityPackedRecords:
         outs = {}
         for packed, op_bits in ((False, 0), (True, ob)):
             state = init_state(jax.random.PRNGKey(6), 1024)
-            h0 = hist_alloc_for("scatter", cam.n_bins)
+            h0 = hist_mod.alloc(cam.n_bins)
             _, h, n = iterate_accumulate(
                 key, cam, "scatter", params, cdf, state, h0, ppu,
                 jnp.int32(3), 16, 8, packed=packed, op_bits=op_bits)
@@ -479,30 +374,13 @@ class TestOpacityPackedRecords:
         # and translucency is real: total mass < plotted count
         assert pck[:-1, 3].sum() < n_pck * 0.999
 
-    def test_render_pallas_win_matches_scatter(self):
-        from cuburn_tpu.profile import RenderProfile
-        from cuburn_tpu.render import Renderer
-        g = self._genome()
-        prof_s = RenderProfile(width=64, height=64, quality=30,
-                               batch=1024, iters_per_chunk=8,
-                               hist_backend="scatter",
-                               de_enabled=False)
-        prof_w = dataclasses.replace(prof_s, hist_backend="pallas_win")
-        r_w = Renderer(g, prof_w)
-        assert r_w.packed and r_w.op_bits == 2
-        img_s, _ = Renderer(g, prof_s).render_frame(0.0, seed=7)
-        img_w, _ = r_w.render_frame(0.0, seed=7)
-        np.testing.assert_allclose(
-            img_s.astype(np.int32), img_w.astype(np.int32), atol=1)
-
 
 class TestPackedVsFullRecords:
     """The packed-u32 log path must agree with the full-record path on
     unit-opacity genomes (same trajectories, same flush totals)."""
 
     def test_histograms_agree(self):
-        from cuburn_tpu.ops.iterate import (hist_alloc_for,
-                                            iterate_accumulate)
+        from cuburn_tpu.ops.iterate import iterate_accumulate
         from cuburn_tpu.ops import histogram as hm
         g = sierpinski()
         key = g.structure_key()
@@ -542,22 +420,3 @@ def test_zero_xaos_row_falls_back_to_uniform():
     # row 0 falls back to uniform: strictly increasing, ends at 1
     assert cdf[0, -1] == pytest.approx(1.0)
     assert (np.diff(cdf[0]) > 0).all()
-
-
-def test_pallas_junk_record_over_int32():
-    """Padding with a junk record whose packed value exceeds 2^31 must
-    not raise (NumPy 2 rejects out-of-range int32 construction)."""
-    from cuburn_tpu.ops import pallas_hist as ph
-    from cuburn_tpu.ops.iterate import expand_palette
-    n_bins = (1 << 22) + 8           # junk_rec = n_bins << 8 > 2^31
-    recs = jnp.zeros((1000,), jnp.uint32)   # NOT a BLOCK multiple
-    pal = expand_palette(jnp.ones((256, 3), jnp.float32), 8)
-    hp = jnp.zeros((ph.packed_rows(n_bins), 128), jnp.float32)
-    out = ph.accumulate_packed_pallas(hp, recs, pal, n_bins, 8,
-                                      interpret=True)
-    # exact semantics, not just finiteness: the 1000 zero records are
-    # REAL records (addr 0, color 0, all-ones palette) and the padding
-    # the kernel appends must deposit nothing in any real bin
-    hist = np.asarray(ph.from_packed_layout(out, n_bins))
-    np.testing.assert_array_equal(hist[0], [1000.0] * 4)
-    assert hist[1:n_bins].sum() == 0.0

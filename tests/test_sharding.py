@@ -46,58 +46,6 @@ def test_sharded_matches_single_chip_mass(eight_devices):
     assert m_s == pytest.approx(m_1, rel=0.15)
 
 
-def test_sharded_pallas_win_matches_scatter(eight_devices):
-    """The windowed Pallas flush must work inside the shard_map region
-    (per-device replica accumulation + one psum) and agree with the
-    sharded scatter path PER BIN — the trajectory stream is
-    backend-invariant, so density (integer counts, order-free f32
-    adds) must be exact and RGB within the packed-color quantization
-    envelope.  Mass-only comparison would miss any shard-local bin
-    addressing bug that conserves totals."""
-    import dataclasses
-    from cuburn_tpu.parallel import ShardedRenderer
-    g = sierpinski()
-    prof = RenderProfile(width=64, height=64, quality=30, batch=2048,
-                         iters_per_chunk=8, hist_backend="pallas_win",
-                         de_enabled=False, fuse=8)
-    h_w, st_w = ShardedRenderer(g, prof).accumulate(0.0, seed=3)
-    prof_s = dataclasses.replace(prof, hist_backend="scatter")
-    h_s, st_s = ShardedRenderer(g, prof_s).accumulate(0.0, seed=3)
-    assert st_w.plotted_samples == st_s.plotted_samples
-    a = np.asarray(h_s, np.float64)
-    b = np.asarray(h_w, np.float64)
-    np.testing.assert_array_equal(a[:, 3], b[:, 3])
-    rgb_rel = (np.abs(a[:, :3] - b[:, :3]).max(axis=1)
-               / (a[:, 3] + 1.0))
-    assert rgb_rel.max() < 0.02, rgb_rel.max()   # measured 0.0035
-
-
-def test_sharded_pallas_rgb16_tuple_hist(eight_devices):
-    """pallas_rgb16's histogram is a (density f32, rgb bf16) TUPLE;
-    the replicated psum path must tree_map its zeros/psum (bare
-    jnp.zeros_like raised and `+` would concatenate — round-4 advisor
-    finding).  Density is integer counts carried in f32: exact vs the
-    sharded scatter path on the same trajectory stream; rgb within
-    the bf16-accumulation envelope."""
-    import dataclasses
-    from cuburn_tpu.parallel import ShardedRenderer
-    g = sierpinski()
-    prof = RenderProfile(width=64, height=64, quality=30, batch=2048,
-                         iters_per_chunk=8,
-                         hist_backend="pallas_rgb16",
-                         de_enabled=False, fuse=8)
-    h_r, st_r = ShardedRenderer(g, prof).accumulate(0.0, seed=3)
-    prof_s = dataclasses.replace(prof, hist_backend="scatter")
-    h_s, st_s = ShardedRenderer(g, prof_s).accumulate(0.0, seed=3)
-    assert st_r.plotted_samples == st_s.plotted_samples
-    a = np.asarray(h_s, np.float64)
-    b = np.asarray(h_r, np.float64)
-    np.testing.assert_array_equal(a[:, 3], b[:, 3])
-    rgb_rel = (np.abs(a[:, :3] - b[:, :3]).max(axis=1)
-               / (a[:, 3] + 1.0))
-    assert rgb_rel.max() < 0.05, rgb_rel.max()
-
-
 def test_sharded_scatter_sorted_matches_scatter(eight_devices):
     """The hinted-scatter backend through shard_map: same RNG stream
     as sharded scatter, so the histograms must match per-bin (density
@@ -359,10 +307,11 @@ def test_sharded_temporal_dispatch_cap_parity(eight_devices):
                                    rtol=1e-5, atol=1e-3)
 
 
-@pytest.mark.parametrize("backend", ["scatter", "pallas_win"])
+@pytest.mark.parametrize("backend",
+                         ["scatter", "scatter_sorted", "sortcum"])
 def test_scattered_mode_matches_replicated(eight_devices, backend):
     """Reduce-scatter mode (each chip owns only its filter band's
-    reduced context block; ~half the ICI bytes of the psum, 1/n
+    reduced context block; ~half the interconnect bytes of the psum, 1/n
     post-reduction residency) must reproduce the replicated-psum
     render: same trajectory stream, same filter math — frames within
     one u8 step (reduction-order ulps), same plotted count."""
@@ -481,8 +430,7 @@ def test_scattered_overlapped_frames_identical(eight_devices):
 
 
 def test_sharded_sortcum_matches_scatter(eight_devices):
-    """The sort-free prefix-sum backend through shard_map (the one
-    remaining pure-XLA backend without sharded coverage): same RNG
+    """The segmented-sum backend through shard_map: same RNG
     stream as sharded scatter, so density must match per-bin exactly."""
     import dataclasses
     from cuburn_tpu.parallel import ShardedRenderer
